@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Using ggnn_tpu as a library on a custom graph task.
+"""Using ggnn as a library on a custom graph task.
 
 Task: "reachability" — given a directed graph with one edge type and a
 marked source node, classify whether a marked target node is reachable
@@ -51,10 +51,10 @@ def main():
     import jax
     import optax
 
-    from ggnn_tpu.data.loader import BatchLoader
-    from ggnn_tpu.graph import PaddingSpec
-    from ggnn_tpu.models import ModelConfig, init_params
-    from ggnn_tpu.train.loop import make_eval_step, make_train_step
+    from ggnn.data.loader import BatchLoader
+    from ggnn.graph import PaddingSpec
+    from ggnn.models import ModelConfig, init_params
+    from ggnn.train.loop import make_eval_step, make_train_step
 
     rng = np.random.default_rng(0)
     train = [make_example(rng) for _ in range(200)]

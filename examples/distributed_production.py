@@ -1,17 +1,17 @@
 #!/usr/bin/env python
 """Distributed production recipe: sharded training + serving on a device
-mesh with every round-8 production lever enabled.
+mesh with every production lever enabled.
 
 Covers the full large-scale surface a reference user needs to migrate:
 
   1. partition a big graph over P shards (dst-owned edges, deduplicated
      halo plan — add ``--hot_thresh`` on skewed cuts to broadcast hub
      rows via one all_gather instead of padding every all-to-all pair);
-  2. TRAIN with the per-shard fused window+GRU kernels inside shard_map
-     (optionally ``--q8_grads``: int8 gradient streams, accuracy-gated);
+  2. TRAIN with the per-shard windowed aggregation inside shard_map
+     (optionally ``--q8_grads``: int8 gradients, accuracy-gated);
   3. SERVE the trained weights with the int8 (q8) table per shard.
 
-Runs on any device count: real chips, or CPU with
+Runs on any device count: GPUs, or CPU with
   XLA_FLAGS=--xla_force_host_platform_device_count=8 python \\
       examples/distributed_production.py --platform cpu --shards 8
 """
@@ -45,11 +45,11 @@ def main():
     import jax
     import optax
 
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.models import ModelConfig, init_params
-    from ggnn_tpu.parallel import (make_mesh, make_sharded_train_step,
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.models import ModelConfig, init_params
+    from ggnn.parallel import (make_mesh, make_sharded_train_step,
                                    partition_batch, sharded_propagate)
-    from ggnn_tpu.parallel.partition import (build_halo_window_layouts,
+    from ggnn.parallel.partition import (build_halo_window_layouts,
                                              split_local_remote)
 
     P = args.shards
@@ -70,10 +70,10 @@ def main():
           f"hot={parts.hot_size}")
     mesh = make_mesh(n_graph=P)
 
-    # 2. sharded TRAIN through the per-shard fused window kernels
+    # 2. sharded TRAIN through the per-shard windowed aggregation
     arrays, meta = build_halo_window_layouts(
         parts, window=128, n_message_types=2 * args.types,
-        with_grad=True, row_major="block", grad_quant=args.q8_grads)
+        row_major="block", grad_quant=args.q8_grads)
     optimizer = optax.adam(1e-3)
     step = make_sharded_train_step(cfg, mesh, optimizer,
                                    strategy="halo_window", halo_meta=meta)
@@ -81,7 +81,7 @@ def main():
     for i in range(args.train_iters):
         prop, opt_state, loss = step(prop, opt_state, parts, arrays)
         print(f"train iter {i}: loss={float(loss):.4f}"
-              + ("  (int8 gradient streams)" if args.q8_grads else ""))
+              + ("  (int8 gradients)" if args.q8_grads else ""))
 
     # 3. sharded SERVING with the trained weights, int8 (q8) table
     cfg_q8 = ModelConfig(state_dim=args.dim, annotation_dim=4,
@@ -94,7 +94,7 @@ def main():
     h = sharded_propagate(prop, cfg_q8, mesh, parts,
                           strategy="halo_window",
                           halo_layouts=(arrays_s, meta_s))
-    print(f"served h: {h.shape} (q8 int8-MXU serving per shard)")
+    print(f"served h: {h.shape} (int8-table serving per shard)")
 
 
 if __name__ == "__main__":

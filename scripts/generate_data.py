@@ -12,8 +12,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ggnn_tpu.data.babi import TASKS
-from ggnn_tpu.data.generators import generate_task_file
+from ggnn.data.babi import TASKS
+from ggnn.data.generators import generate_task_file
 
 
 def main(root="babi_data", folds=10, seed=0):

@@ -22,8 +22,8 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from ggnn_tpu.train.config import CONFIGS
-    from ggnn_tpu.train.folds import run_folds
+    from ggnn.train.config import CONFIGS
+    from ggnn.train.folds import run_folds
 
     report = {}
     for name in sorted(CONFIGS):

@@ -2,7 +2,7 @@
 
 Runs as one of two `jax.distributed` processes (1 CPU device each):
 initializes the multi-host runtime through
-ggnn_tpu.parallel.multihost.initialize_multihost (the DCN bootstrap path,
+ggnn.parallel.multihost.initialize_multihost (the DCN bootstrap path,
 SURVEY.md §5.3/§5.8), builds the same seeded batch on both hosts, runs a
 sharded halo-exchange propagation over the 2-process global mesh, and
 checks it against the locally-computed single-device reference.
@@ -24,7 +24,7 @@ import numpy as np  # noqa: E402
 
 
 def main(pid: int, nproc: int, port: str) -> None:
-    from ggnn_tpu.parallel.multihost import initialize_multihost, is_primary
+    from ggnn.parallel.multihost import initialize_multihost, is_primary
 
     assert initialize_multihost(
         coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
@@ -36,10 +36,10 @@ def main(pid: int, nproc: int, port: str) -> None:
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ggnn_tpu.graph import PaddingSpec, batch_graphs
-    from ggnn_tpu.models import ModelConfig, init_params, propagate
-    from ggnn_tpu.parallel import make_mesh, partition_batch, sharded_propagate
-    from ggnn_tpu.parallel.partition import PartitionedBatch
+    from ggnn.graph import PaddingSpec, batch_graphs
+    from ggnn.models import ModelConfig, init_params, propagate
+    from ggnn.parallel import make_mesh, partition_batch, sharded_propagate
+    from ggnn.parallel.partition import PartitionedBatch
 
     # identical seeded batch on every host (multi-host determinism,
     # SURVEY.md §7.2.5)

@@ -1,5 +1,5 @@
-"""bench.py output contract: one JSON line with metric/value/unit/
-vs_baseline (the driver parses this)."""
+"""bench.py output contract: the last line is one JSON record with
+metric/value/unit/vs_baseline and the device it ran on."""
 
 import json
 import subprocess
@@ -14,6 +14,7 @@ def test_bench_json_contract():
         env={"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin:/usr/local/bin"})
     assert out.returncode == 0, out.stderr[-500:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    for key in ("metric", "value", "unit", "vs_baseline"):
+    for key in ("metric", "value", "unit", "vs_baseline", "device"):
         assert key in rec
     assert rec["value"] > 0
+    assert rec["device"]["platform"] == "cpu"  # JAX_PLATFORMS=cpu above

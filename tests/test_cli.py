@@ -2,8 +2,8 @@
 
 import json
 
-from ggnn_tpu.train.__main__ import main as train_main
-from ggnn_tpu.train.folds import run_folds
+from ggnn.train.__main__ import main as train_main
+from ggnn.train.folds import run_folds
 
 
 def test_train_cli(tmp_path, capsys):

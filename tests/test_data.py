@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from ggnn_tpu.data import TASKS, generate_task_file
-from ggnn_tpu.data.babi import parse_graph_text, examples_to_graphs
-from ggnn_tpu.data.loader import BatchLoader
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
+from ggnn.data import TASKS, generate_task_file
+from ggnn.data.babi import parse_graph_text, examples_to_graphs
+from ggnn.data.loader import BatchLoader
+from ggnn.graph import PaddingSpec, batch_graphs
 
 
 @pytest.mark.parametrize("task_id", sorted(TASKS))

@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params, propagate
-from ggnn_tpu.parallel import make_mesh, partition_batch, sharded_propagate
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params, propagate
+from ggnn.parallel import make_mesh, partition_batch, sharded_propagate
 
 
 def make_random_batch(rng, n_graphs=4, n_edge_types=3, annotation_dim=2,
@@ -106,8 +106,8 @@ def test_sharded_propagate_halo_window(rng):
     """halo_window: per-shard windowed block-CSR local aggregation +
     typed halo-pool remote aggregation matches the single-device path
     (community graph partitioned along community boundaries)."""
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.parallel.partition import split_local_remote
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.parallel.partition import split_local_remote
     b = synthetic_batch(1024, 6000, 3, annotation_dim=2, seed=3,
                         node_mult=1024, n_communities=8, p_intra=0.9)
     # adversarial: mask out every edge of the HIGHEST message type — the
@@ -133,8 +133,8 @@ def test_sharded_propagate_halo_window_uneven_spill(rng):
     padded to common static shapes (16-aligned packs are per-topology
     unless spill_pad_tiles_to pins them — this raised ValueError on
     np.stack before the fix)."""
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.parallel.partition import (build_halo_window_layouts,
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.parallel.partition import (build_halo_window_layouts,
                                              split_local_remote)
     b = synthetic_batch(1024, 6000, 3, annotation_dim=2, seed=5,
                         node_mult=1024, n_communities=8, p_intra=0.6)
@@ -163,10 +163,10 @@ def test_window_layout_for_batch_static_shapes(rng):
     including the 16-aligned spill pack."""
     import jax.tree_util as jtu
 
-    from ggnn_tpu.data import TASKS, generate_task_file
-    from ggnn_tpu.data.babi import parse_graph_text
-    from ggnn_tpu.graph import PaddingSpec, batch_graphs
-    from ggnn_tpu.ops.window_pallas import window_layout_for_batch
+    from ggnn.data import TASKS, generate_task_file
+    from ggnn.data.babi import parse_graph_text
+    from ggnn.graph import PaddingSpec, batch_graphs
+    from ggnn.ops.window import window_layout_for_batch
 
     spec = PaddingSpec(n_graphs=4, n_pad=128, e_pad=256, n_edge_types=4,
                        annotation_dim=1).round_up()
@@ -190,8 +190,8 @@ def test_sharded_train_step_grad_parity(rng):
     """value_and_grad THROUGH the shard_map (reverse all-to-all) matches
     single-device training gradients; one optimizer step agrees."""
     import optax
-    from ggnn_tpu.parallel import make_sharded_train_step
-    from ggnn_tpu.parallel.partition import split_local_remote
+    from ggnn.parallel import make_sharded_train_step
+    from ggnn.parallel.partition import split_local_remote
 
     spec, b = make_random_batch(rng, n_graphs=6, n_mult=8)
     parts = split_local_remote(partition_batch(b, 8))
@@ -227,19 +227,19 @@ def test_sharded_train_step_grad_parity(rng):
 
 @pytest.mark.parametrize("strategy,row_major,window", [
     ("halo_onehot", None, None),
-    ("halo_window", "src", 64),      # unfused backward (ct stream)
-    ("halo_window", "block", 128),   # fused backward (forward count stream)
+    ("halo_window", "src", 64),
+    ("halo_window", "block", 128),
 ])
 def test_sharded_train_step_kernel_backends(rng, strategy, row_major, window):
-    """TRAINING through the kernel strategies: value_and_grad through the
-    shard_map with the per-shard one-hot / windowed custom VJPs running on
-    stacked with_grad layouts — loss and one optimizer step match the
-    single-device path (VERDICT r1 #1)."""
+    """TRAINING through the layout strategies: value_and_grad through the
+    shard_map with the per-shard onehot / windowed aggregations running on
+    stacked layouts — loss and one optimizer step match the single-device
+    path."""
     import optax
 
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.parallel import make_sharded_train_step
-    from ggnn_tpu.parallel.partition import (build_halo_scatter_layouts,
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.parallel import make_sharded_train_step
+    from ggnn.parallel.partition import (build_halo_scatter_layouts,
                                              build_halo_window_layouts,
                                              split_local_remote)
 
@@ -251,14 +251,11 @@ def test_sharded_train_step_kernel_backends(rng, strategy, row_major, window):
     prop = params["prop"]
     parts = split_local_remote(partition_batch(b, 8))
     if strategy == "halo_onehot":
-        arrays, meta = build_halo_scatter_layouts(parts, tile_e=16,
-                                                  with_grad=True,
-                                                  grad_tile_e=16)
+        arrays, meta = build_halo_scatter_layouts(parts, tile_e=16)
     else:
         arrays, meta = build_halo_window_layouts(
             parts, window=window, min_edges_per_tile=4, spill_tile_e=16,
-            n_message_types=cfg.n_message_types, with_grad=True,
-            row_major=row_major)
+            n_message_types=cfg.n_message_types, row_major=row_major)
 
     optimizer = optax.adam(1e-2)
     opt0 = optimizer.init(prop)
@@ -288,14 +285,14 @@ def test_sharded_train_step_kernel_backends(rng, strategy, row_major, window):
 def test_sharded_task_training_matches_single_device(rng, strategy):
     """END-TO-END sharded task training (real node-selection head + loss,
     cross-shard segment softmax): the 3-step loss curve and final params
-    match the single-device train step (VERDICT r1 #2)."""
+    match the single-device train step."""
     import jax.numpy as jnp
     import optax
 
-    from ggnn_tpu.parallel import make_sharded_task_train_step
-    from ggnn_tpu.parallel.partition import (build_halo_window_layouts,
+    from ggnn.parallel import make_sharded_task_train_step
+    from ggnn.parallel.partition import (build_halo_window_layouts,
                                              split_local_remote)
-    from ggnn_tpu.train.loop import make_train_step
+    from ggnn.train.loop import make_train_step
 
     graphs, total = [], 0
     while total < 1024 - 40:
@@ -336,7 +333,7 @@ def test_sharded_task_training_matches_single_device(rng, strategy):
     if strategy == "halo_window":
         halo_arrays, halo_meta = build_halo_window_layouts(
             parts, window=64, min_edges_per_tile=4, spill_tile_e=16,
-            n_message_types=cfg.n_message_types, with_grad=True)
+            n_message_types=cfg.n_message_types)
     step2 = make_sharded_task_train_step(cfg, mesh, optimizer, n_graphs,
                                          strategy=strategy,
                                          halo_meta=halo_meta)
@@ -370,9 +367,9 @@ def test_sharded_graph_gated_training_matches_single_device(rng):
     import jax.numpy as jnp
     import optax
 
-    from ggnn_tpu.parallel import make_sharded_task_train_step
-    from ggnn_tpu.parallel.partition import split_local_remote
-    from ggnn_tpu.train.loop import make_train_step
+    from ggnn.parallel import make_sharded_task_train_step
+    from ggnn.parallel.partition import split_local_remote
+    from ggnn.train.loop import make_train_step
 
     graphs, total = [], 0
     while total < 256 - 24:
@@ -417,20 +414,19 @@ def test_sharded_graph_gated_training_matches_single_device(rng):
                                    err_msg=f"step {i}")
 
 
-@pytest.mark.parametrize("on_demand", [False, True])
-def test_sharded_train_fused_window_step(rng, on_demand):
-    """halo_window sharded TRAINING through the FUSED window+GRU step
-    (cfg.fuse_gru=True: the per-shard emit_res custom VJP, with the
-    remote-edge partial riding the kernel's init stream) — loss and one
-    optimizer step match single-device training.  Needs n_local % 128
-    == 0 and D % 128 == 0 (1024 nodes / 8 shards, D=128).  on_demand
-    additionally pins the XW spill's type buckets across shards (the
-    offsets are static meta) and builds no table per shard."""
+@pytest.mark.parametrize("typed_spill", [False, True])
+def test_sharded_train_fused_window_step(rng, typed_spill):
+    """halo_window sharded TRAINING through the fused window+GRU step
+    (cfg.fuse_gru=True, with the remote-edge partial added to a before
+    the GRU) — loss and one optimizer step match single-device training
+    (1024 nodes / 8 shards, D=128).  typed_spill additionally pins the
+    XW spill's type buckets across shards (the offsets are static
+    meta)."""
     import optax
 
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.parallel import make_sharded_train_step
-    from ggnn_tpu.parallel.partition import (build_halo_window_layouts,
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.parallel import make_sharded_train_step
+    from ggnn.parallel.partition import (build_halo_window_layouts,
                                              split_local_remote)
 
     b = synthetic_batch(1024, 6000, 3, annotation_dim=2, seed=7,
@@ -445,9 +441,9 @@ def test_sharded_train_fused_window_step(rng, on_demand):
     parts = split_local_remote(partition_batch(b, 8))
     arrays, meta = build_halo_window_layouts(
         parts, window=128, min_edges_per_tile=4,
-        spill_tile_e=(None if on_demand else 16),
-        n_message_types=cfg.n_message_types, with_grad=True,
-        row_major="block", on_demand=on_demand)
+        spill_tile_e=(None if typed_spill else 16),
+        n_message_types=cfg.n_message_types,
+        row_major="block", typed_spill=typed_spill)
 
     optimizer = optax.adam(1e-2)
     opt0 = optimizer.init(prop)
@@ -479,8 +475,8 @@ def test_sharded_halo_window_q8_serving(rng):
     scales); cross-shard remote edges stay bf16.  The sharded q8 result
     must track the exact bf16 sharded path within the quantization
     error bound (~0.5 % relative per step)."""
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.parallel.partition import (build_halo_window_layouts,
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.parallel.partition import (build_halo_window_layouts,
                                              split_local_remote)
     b = synthetic_batch(1024, 6000, 3, annotation_dim=2, seed=11,
                         node_mult=1024, n_communities=8, p_intra=0.9)
@@ -509,13 +505,13 @@ def test_sharded_halo_window_q8_serving(rng):
 def test_sharded_per_node_training_matches_single_device(rng):
     """Sharded per_node head (C7b): per-shard logits/NLL with psum'd
     normalizing sums; 3-step loss curve and metrics match the
-    single-device train step (VERDICT r2 #3)."""
+    single-device train step."""
     import jax.numpy as jnp
     import optax
 
-    from ggnn_tpu.parallel import make_sharded_task_train_step
-    from ggnn_tpu.parallel.partition import split_local_remote
-    from ggnn_tpu.train.loop import make_train_step
+    from ggnn.parallel import make_sharded_task_train_step
+    from ggnn.parallel.partition import split_local_remote
+    from ggnn.train.loop import make_train_step
 
     graphs, total = [], 0
     while total < 256 - 24:
@@ -573,13 +569,13 @@ def test_sharded_ggsnn_training_matches_single_device(rng, output,
     (psum'd gated pool token logits, or segment-softmax node selection),
     local annotation rewrite (+ GGS-NN-opt BCE when supervised).  3-step
     loss curve and exact-match metrics equal the single-device train step
-    (VERDICT r2 #3)."""
+   ."""
     import jax.numpy as jnp
     import optax
 
-    from ggnn_tpu.parallel import make_sharded_task_train_step
-    from ggnn_tpu.parallel.partition import split_local_remote
-    from ggnn_tpu.train.loop import make_train_step
+    from ggnn.parallel import make_sharded_task_train_step
+    from ggnn.parallel.partition import split_local_remote
+    from ggnn.train.loop import make_train_step
 
     K = 3
     graphs, total = [], 0
@@ -647,9 +643,9 @@ def test_sharded_ggsnn_per_round_nets(rng):
     import jax.numpy as jnp
     import optax
 
-    from ggnn_tpu.parallel import make_sharded_task_train_step
-    from ggnn_tpu.parallel.partition import split_local_remote
-    from ggnn_tpu.train.loop import make_train_step
+    from ggnn.parallel import make_sharded_task_train_step
+    from ggnn.parallel.partition import split_local_remote
+    from ggnn.train.loop import make_train_step
 
     K = 2
     graphs, total = [], 0
@@ -695,9 +691,9 @@ def test_sharded_eval_step_matches_single_device(rng):
     single-device eval step (node_select and ggsnn heads)."""
     import jax.numpy as jnp
 
-    from ggnn_tpu.parallel import make_sharded_eval_step
-    from ggnn_tpu.parallel.partition import split_local_remote
-    from ggnn_tpu.train.loop import make_eval_step
+    from ggnn.parallel import make_sharded_eval_step
+    from ggnn.parallel.partition import split_local_remote
+    from ggnn.train.loop import make_eval_step
 
     K = 2
     graphs, total = [], 0
@@ -738,14 +734,15 @@ def test_sharded_eval_step_matches_single_device(rng):
 
 def test_sharded_grad_quant_training(rng):
     """Sharded halo_window TRAINING with int8 GRADIENT streams
-    (build_halo_window_layouts(grad_quant=True) — the round-8 q8-grad
-    path per shard inside shard_map): one optimizer step tracks the
-    single-device exact-gradient path within the q8-grad budget."""
+    (build_halo_window_layouts(grad_quant=True) — the int8 backward of
+    the count product per shard inside shard_map): one optimizer step
+    tracks the single-device exact-gradient path within the q8-grad
+    budget."""
     import optax
 
-    from ggnn_tpu.data.synthetic import synthetic_batch
-    from ggnn_tpu.parallel import make_sharded_train_step
-    from ggnn_tpu.parallel.partition import (build_halo_window_layouts,
+    from ggnn.data.synthetic import synthetic_batch
+    from ggnn.parallel import make_sharded_train_step
+    from ggnn.parallel.partition import (build_halo_window_layouts,
                                              split_local_remote)
 
     b = synthetic_batch(1024, 6000, 3, annotation_dim=2, seed=7,
@@ -757,9 +754,9 @@ def test_sharded_grad_quant_training(rng):
     parts = split_local_remote(partition_batch(b, 8))
     arrays, meta = build_halo_window_layouts(
         parts, window=128, min_edges_per_tile=4, spill_tile_e=16,
-        n_message_types=cfg.n_message_types, with_grad=True,
+        n_message_types=cfg.n_message_types,
         row_major="block", grad_quant=True)
-    assert meta["full_meta"][10] is True       # grad_quant engaged
+    assert meta["full_meta"][7] is True        # grad_quant engaged
 
     optimizer = optax.adam(1e-2)
     mesh = make_mesh(8)

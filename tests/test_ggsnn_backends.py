@@ -1,5 +1,5 @@
-"""GGS-NN with production backends inside the round scan (round-2 lead):
-onehot / pallas parity vs the XLA path, gradient parity, and jit-stability
+"""GGS-NN with the layout backends inside the round scan:
+onehot parity vs the XLA path, gradient parity, and jit-stability
 of the static-budget scatter layouts across batches."""
 
 import jax
@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params, loss_and_metrics
-from ggnn_tpu.models.ggsnn import ggsnn_forward
-from ggnn_tpu.ops.scatter_pallas import layout_for_batch
-from ggnn_tpu.train.loop import make_train_step
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params, loss_and_metrics
+from ggnn.models.ggsnn import ggsnn_forward
+from ggnn.ops.onehot import layout_for_batch
+from ggnn.train.loop import make_train_step
 
 
 def _rand_graphs(rng, n_graphs=3, n_edge_types=3, annotation_dim=2, seq_k=3):
@@ -58,20 +58,17 @@ def test_ggsnn_backend_parity(rng):
         @jax.jit
         def fwd(params, layout, *args):
             return ggsnn_forward(params, cfg, *args, n_graphs=spec.n_graphs,
-                                 type_offsets=jnp.asarray(b.type_offsets),
                                  scatter_layout=layout)[0]
 
         return np.asarray(fwd(params, layout, *args))
 
     ref = run("xla")
-    got_oh = run("onehot", layout_for_batch(b, with_grad=False))
-    got_pl = run("pallas")
+    got_oh = run("onehot", layout_for_batch(b))
     np.testing.assert_allclose(got_oh, ref, rtol=3e-5, atol=3e-5)
-    np.testing.assert_allclose(got_pl, ref, rtol=3e-5, atol=3e-5)
 
 
 def test_ggsnn_onehot_grad_parity(rng):
-    """value_and_grad through the round scan with the one-hot custom-VJP
+    """value_and_grad through the round scan with the onehot layout
     aggregation matches the XLA backend."""
     E, A, K = 3, 2, 2
     graphs = _rand_graphs(rng, n_edge_types=E, annotation_dim=A, seq_k=K)
@@ -92,7 +89,7 @@ def test_ggsnn_onehot_grad_parity(rng):
         return jax.grad(loss)(params, layout, b.arrays)
 
     g_ref = grads("xla")
-    g_oh = grads("onehot", layout_for_batch(b, with_grad=True))
+    g_oh = grads("onehot", layout_for_batch(b))
     jax.tree.map(lambda a, c: np.testing.assert_allclose(
         np.asarray(a), np.asarray(c), rtol=2e-4, atol=2e-5), g_oh, g_ref)
 
@@ -120,8 +117,8 @@ def test_static_layout_single_compile(rng):
         np.asarray(a.shape), np.asarray(c.shape)), l1, l2)
     assert l1.meta == l2.meta
     # adversarial meta stability: all edges into ONE dst block vs spread
-    # across blocks must still produce identical static meta (max_tiles is
-    # part of the jit cache key — a per-topology value recompiles the step)
+    # across blocks must still produce identical static meta (meta is part
+    # of the jit cache key — a per-topology value recompiles the step)
     def _batch(dsts):
         g = [dict(n_nodes=10,
                   edges=np.stack([np.zeros(8, np.int64),
@@ -144,7 +141,7 @@ def test_static_layout_single_compile(rng):
 def test_ggsnn_window_backend_parity(rng):
     """GGS-NN round scan on the windowed block-CSR backend matches XLA
     (the layout flows through the same scatter_layout plumbing)."""
-    from ggnn_tpu.ops.window_pallas import build_window_layout
+    from ggnn.ops.window import build_window_layout
     E, A, K = 3, 2, 2
     graphs = _rand_graphs(rng, n_edge_types=E, annotation_dim=A, seq_k=K)
     spec = _spec(graphs, E, A)

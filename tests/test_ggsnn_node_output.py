@@ -3,8 +3,8 @@ shape/loss sanity and a short training run that must make progress."""
 
 import numpy as np
 
-from ggnn_tpu.train import Trainer, build_config
-from ggnn_tpu.train.metrics import MetricsLogger
+from ggnn.train import Trainer, build_config
+from ggnn.train.metrics import MetricsLogger
 
 
 def test_node_output_trains(tmp_path):

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params
-from ggnn_tpu.parallel import make_mesh
-from ggnn_tpu.parallel.multihost import initialize_multihost, is_primary
-from ggnn_tpu.parallel.train import make_gspmd_train_step, shard_batch_arrays
-from ggnn_tpu.train.loop import make_train_step
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params
+from ggnn.parallel import make_mesh
+from ggnn.parallel.multihost import initialize_multihost, is_primary
+from ggnn.parallel.train import make_gspmd_train_step, shard_batch_arrays
+from ggnn.train.loop import make_train_step
 
 
 def make_batch(rng, B=4, n_per=16, E=3, A=2):
@@ -58,7 +58,7 @@ def test_gspmd_step_matches_single_device(rng):
                                    rtol=5e-3, atol=1e-3)
 
     # gradients themselves match tightly
-    from ggnn_tpu.models import loss_and_metrics
+    from ggnn.models import loss_and_metrics
 
     def loss_fn(p, arr):
         return loss_and_metrics(p, cfg, arr, spec.n_graphs)[0]

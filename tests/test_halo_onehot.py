@@ -4,9 +4,9 @@ shard_map, parity vs single-device propagation (128-multiple shard size)."""
 import jax
 import numpy as np
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params, propagate
-from ggnn_tpu.parallel import make_mesh, partition_batch, sharded_propagate
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params, propagate
+from ggnn.parallel import make_mesh, partition_batch, sharded_propagate
 
 
 def test_halo_onehot_matches_single_device(rng):
@@ -37,5 +37,5 @@ def test_halo_onehot_matches_single_device(rng):
     parts = partition_batch(b, n_shards)
     got = np.asarray(sharded_propagate(
         params["prop"], cfg, mesh, parts, strategy="halo_onehot",
-        scatter_tile_e=8, interpret=True))
+        scatter_tile_e=8))
     np.testing.assert_allclose(got, ref, rtol=3e-5, atol=3e-6)

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from ggnn_tpu.data.babi import TASKS, examples_to_graphs, parse_graph_text
-from ggnn_tpu.data.generators import generate_task_file
-from ggnn_tpu.infer import Predictor
-from ggnn_tpu.train import Trainer, build_config
-from ggnn_tpu.train.metrics import MetricsLogger
+from ggnn.data.babi import TASKS, examples_to_graphs, parse_graph_text
+from ggnn.data.generators import generate_task_file
+from ggnn.infer import Predictor
+from ggnn.train import Trainer, build_config
+from ggnn.train.metrics import MetricsLogger
 
 
 def test_predictor_round_trip(tmp_path):
@@ -33,9 +33,9 @@ def test_predictor_round_trip(tmp_path):
 def test_predictor_backends_agree(rng):
     """Predictions are backend-independent: xla vs onehot vs window (the
     serving path builds static-budget layouts per batch, one compile)."""
-    from ggnn_tpu.infer import Predictor
-    from ggnn_tpu.models.config import ModelConfig
-    from ggnn_tpu.graph import PaddingSpec
+    from ggnn.infer import Predictor
+    from ggnn.models.config import ModelConfig
+    from ggnn.graph import PaddingSpec
 
     def graphs(k):
         out = []

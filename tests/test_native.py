@@ -4,11 +4,11 @@ Makefile and asserts exact equality with the pure-Python host path."""
 import numpy as np
 import pytest
 
-from ggnn_tpu import native
-from ggnn_tpu.data import TASKS, generate_task_file
-from ggnn_tpu.data.babi import parse_graph_text
-from ggnn_tpu.graph import PaddingSpec, _sort_edges, batch_graphs
-from ggnn_tpu.parallel.partition import partition_batch
+from ggnn import native
+from ggnn.data import TASKS, generate_task_file
+from ggnn.data.babi import parse_graph_text
+from ggnn.graph import PaddingSpec, _sort_edges, batch_graphs
+from ggnn.parallel.partition import partition_batch
 
 pytestmark = pytest.mark.skipif(not native.build(),
                                 reason="no C++ toolchain available")
@@ -83,13 +83,13 @@ def test_native_halo_plan_matches_python(rng):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("pack", [False, True])
-@pytest.mark.parametrize("with_grad", [False, True])
-def test_native_window_layout_matches_python(rng, pack, with_grad):
+@pytest.mark.parametrize("row_major", ["src", "block"])
+@pytest.mark.parametrize("typed_spill", [False, True])
+def test_native_window_layout_matches_python(rng, row_major, typed_spill):
     """The C++ window plan (radix sort + direct count fill) produces
-    bit-identical layouts to the numpy path, incl. saturation spill,
-    int4 packing, grad streams, and static tile-budget padding."""
-    from ggnn_tpu.ops.window_pallas import build_window_layout
+    bit-identical layouts to the numpy path, incl. saturation spill, both
+    spill kinds, and static tile-budget padding."""
+    from ggnn.ops.window import build_window_layout
     N, E, T2 = 512, 5000, 6
     src = rng.integers(0, N, E).astype(np.int32)
     dst = rng.integers(0, N, E).astype(np.int32)
@@ -98,8 +98,8 @@ def test_native_window_layout_matches_python(rng, pack, with_grad):
     # duplicate a handful of edges heavily to exercise saturation spill
     src[:40] = 3; dst[:40] = 7; typ[:40] = 1; mask[:40] = 1.0
     kw = dict(window=256, min_edges_per_tile=3, spill_tile_e=8,
-              n_message_types=T2, block_rows=256, with_grad=with_grad,
-              pack_counts=pack, pad_tiles_to=64)
+              n_message_types=T2, block_rows=256, row_major=row_major,
+              typed_spill=typed_spill, pad_tiles_to=64)
     lay_py = build_window_layout(src, dst, typ, mask, N, use_native=False,
                                  **kw)
     lay_cc = build_window_layout(src, dst, typ, mask, N, use_native=True,

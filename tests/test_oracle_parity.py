@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params, propagate, forward
-from ggnn_tpu.models.ggsnn import ggsnn_forward
-from ggnn_tpu.oracle import (
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params, propagate, forward
+from ggnn.models.ggsnn import ggsnn_forward
+from ggnn.oracle import (
     oracle_propagate, oracle_propagate_dense, oracle_node_select,
     oracle_per_node, oracle_graph_gated, oracle_ggsnn)
 

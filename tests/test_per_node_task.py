@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import optax
 
-from ggnn_tpu.data.loader import BatchLoader
-from ggnn_tpu.graph import PaddingSpec
-from ggnn_tpu.models import ModelConfig, init_params
-from ggnn_tpu.train.loop import make_eval_step, make_train_step
+from ggnn.data.loader import BatchLoader
+from ggnn.graph import PaddingSpec
+from ggnn.models import ModelConfig, init_params
+from ggnn.train.loop import make_eval_step, make_train_step
 
 
 def make_example(rng, n_lo=5, n_hi=9):

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params, loss_and_metrics
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params, loss_and_metrics
 
 
 def build(graphs, E=2, A=1, B=None):
@@ -69,7 +69,7 @@ def test_self_loops_and_duplicates():
 
 def test_extreme_state_values_no_nan():
     """Huge states through segment_softmax / gates stay finite."""
-    from ggnn_tpu.ops.segment import segment_log_softmax, segment_softmax
+    from ggnn.ops.segment import segment_log_softmax, segment_softmax
     scores = jnp.asarray([1e30, -1e30, 0.0, 1e30])
     seg = jnp.asarray([0, 0, 1, 2], jnp.int32)
     mask = jnp.asarray([1.0, 1.0, 1.0, 0.0])
@@ -82,13 +82,13 @@ def test_extreme_state_values_no_nan():
 
 
 def test_quantized_table_training_guard():
-    """quantized_table is serving-only (the int8 fused step is a raw
-    forward-only pallas_call) — the train-step factories fail loudly
-    instead of dying inside Pallas differentiation (ADVICE r3)."""
+    """quantized_table is serving-only (rounding to int8 has a zero
+    gradient almost everywhere) — the train-step factories fail loudly
+    instead of silently training nothing."""
     import optax
 
-    from ggnn_tpu.parallel.halo import make_sharded_train_step
-    from ggnn_tpu.train.loop import make_train_step
+    from ggnn.parallel.halo import make_sharded_train_step
+    from ggnn.train.loop import make_train_step
     cfg = ModelConfig(state_dim=128, backend="window", fuse_gru=True,
                       quantized_table=True)
     with pytest.raises(ValueError, match="SERVING"):
@@ -98,22 +98,3 @@ def test_quantized_table_training_guard():
     with pytest.raises(ValueError, match="SERVING"):
         make_sharded_train_step(cfg, mesh, optax.adam(1e-3),
                                 strategy="halo_window", halo_meta={})
-
-
-def test_chunk_blocks_hub_over_cap_raises():
-    """A single dst block whose tile count alone exceeds the SMEM chunk
-    cap raises a descriptive error instead of a later Mosaic/SMEM one
-    (ADVICE r3)."""
-    from ggnn_tpu.ops.scatter_pallas import SMEM_TILE_CAP, _chunk_blocks
-    cap = SMEM_TILE_CAP
-    hub = cap + 50
-    tile_start = np.array([0, 3, 3 + hub, 3 + hub + 7], np.int64)
-    with pytest.raises(ValueError, match="tile_e"):
-        _chunk_blocks(tile_start, cap=cap)
-    # tiny artificial caps (the fuzz tests' regime) keep the permissive
-    # single-block-chunk behavior
-    ok = _chunk_blocks(np.array([0, 3, 103, 110], np.int64), cap=50)
-    assert ok is not None
-    # boundary: exactly-at-cap block splits fine
-    ok = _chunk_blocks(np.array([0, cap, cap + 10], np.int64), cap=cap)
-    assert ok == ((0, 1, 0, cap), (1, 2, cap, cap + 10))

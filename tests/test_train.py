@@ -10,8 +10,8 @@ import pytest
 
 import jax
 
-from ggnn_tpu.train import Trainer, build_config
-from ggnn_tpu.train.metrics import MetricsLogger
+from ggnn.train import Trainer, build_config
+from ggnn.train.metrics import MetricsLogger
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
-from ggnn_tpu.models import ModelConfig, init_params, propagate
-from ggnn_tpu.models.ggsnn import ggsnn_forward
+from ggnn.graph import PaddingSpec, batch_graphs
+from ggnn.models import ModelConfig, init_params, propagate
+from ggnn.models.ggsnn import ggsnn_forward
 
 
 def _batch(rng, E=3, A=2):

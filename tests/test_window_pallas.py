@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ggnn_tpu.models import ModelConfig, init_params
-from ggnn_tpu.ops.segment import typed_aggregate
-from ggnn_tpu.ops.window_pallas import aggregate_window, build_window_layout
+from ggnn.models import ModelConfig, init_params
+from ggnn.ops.segment import typed_aggregate
+from ggnn.ops.window import aggregate_window, build_window_layout
 
 
 def random_edges(rng, n_nodes, n_edges, n_types):
@@ -38,114 +38,44 @@ def test_window_parity(rng, min_edges, row_major):
                           jnp.asarray(typ), jnp.asarray(mask),
                           params["prop"]["msg_w"], params["prop"]["msg_b"])
     got = aggregate_window(h, lay, params["prop"]["msg_w"],
-                           params["prop"]["msg_b"], interpret=True)
+                           params["prop"]["msg_b"])
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("with_grad", [False, True])
-def test_window_packed_parity(rng, with_grad):
-    """int4-packed count streams (pack_counts=True): forward and backward
-    match the XLA segment path; both directions report packed."""
-    N, E, T2, D = 512, 3000, 4, 32
-    src, dst, typ, mask = random_edges(rng, N, E, T2)
-    lay = build_window_layout(src, dst, typ, mask, N, window=256,
-                              min_edges_per_tile=2, spill_tile_e=8,
-                              n_message_types=T2, block_rows=256,
-                              with_grad=with_grad, pack_counts=True)
-    assert lay.packed == (True, True)
-    # packed stream is half-width
-    assert lay.arrays["c_stream"].shape[1] == 128
-    cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=2)
-    params = init_params(jax.random.PRNGKey(0), cfg)
-    h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
-    w, b = params["prop"]["msg_w"], params["prop"]["msg_b"]
-    ref = typed_aggregate(h, jnp.asarray(src), jnp.asarray(dst),
-                          jnp.asarray(typ), jnp.asarray(mask), w, b)
-    got = aggregate_window(h, lay, w, b, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5)
-    if with_grad:
-        tgt = jax.random.normal(jax.random.PRNGKey(2), (N, D))
-
-        def loss(agg):
-            def f(h, w, b):
-                return jnp.sum((agg(h, w, b) - tgt) ** 2)
-            return jax.grad(f, argnums=(0, 1, 2))(h, w, b)
-
-        g_ref = loss(lambda h, w, b: typed_aggregate(
-            h, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(typ),
-            jnp.asarray(mask), w, b))
-        g_win = loss(lambda h, w, b: aggregate_window(
-            h, lay, w, b, interpret=True))
-        for a, c, name in zip(g_win, g_ref, ("dh", "dW", "db")):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(c),
-                                       rtol=2e-4, atol=2e-4, err_msg=name)
-
-
-def test_window_packed_saturation_and_guards(rng):
-    """Packing tightens the duplicate-pair saturation threshold to 15 (int4)
-    and rejects windows too narrow to fill a 128-lane packed tile."""
-    N = 512
-    # 20 duplicates of one edge: fits int8 (127) but not int4 (15)
-    src = np.full(20, 3, np.int32)
-    dst = np.full(20, 7, np.int32)
-    typ = np.ones(20, np.int32)
-    mask = np.ones(20, np.float32)
-    lay = build_window_layout(src, dst, typ, mask, N, window=256,
-                              min_edges_per_tile=1, n_message_types=4,
-                              pack_counts=True)
-    assert lay.stats["spill_frac"] == 1.0
-    lay8 = build_window_layout(src, dst, typ, mask, N, window=256,
-                               min_edges_per_tile=1, n_message_types=4)
-    assert lay8.stats["spill_frac"] == 0.0
-    with pytest.raises(ValueError, match="window >= 256"):
-        build_window_layout(src, dst, typ, mask, N, window=128,
-                            n_message_types=4, pack_counts=True)
-    # block_rows=128 < 256: forward packs, backward stays unpacked
-    lay_bw = build_window_layout(src[:1], dst[:1], typ[:1], mask[:1], N,
-                                 window=256, min_edges_per_tile=1,
-                                 n_message_types=4, with_grad=True,
-                                 pack_counts=True)
-    assert lay_bw.packed == (True, False)
-
-
-@pytest.mark.parametrize("pack,min_edges,row_major",
+@pytest.mark.parametrize("typed_spill,min_edges,row_major",
                          [(False, 3, "src"), (True, 3, "block"),
                           (False, 150, "block"), (False, 10_000, "src")])
-def test_fused_gru_step_parity(rng, pack, min_edges, row_major):
-    """gru_window_step (window accumulate + in-kernel GRU epilogue) matches
-    the unfused aggregate_window + gru_update step — all-dense (3), mixed
-    window+spill (150), and all-spill/init-only (10000); src- and
-    block-major table orders."""
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import gru_window_step
+def test_fused_gru_step_parity(rng, typed_spill, min_edges, row_major):
+    """gru_window_step (window aggregation + GRU in one step function)
+    matches the unfused aggregate_window + gru_update step — all-dense
+    (3), mixed window+spill (150), and all-spill (10000); src- and
+    block-major table orders, table and XW spills."""
+    from ggnn.models.ggnn import gru_update
+    from ggnn.ops.window import gru_window_step
     N, E, T2, D = 512, 3000, 4, 32
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=256,
                               min_edges_per_tile=min_edges, spill_tile_e=8,
                               n_message_types=T2, block_rows=256,
-                              pack_counts=pack, row_major=row_major)
+                              typed_spill=typed_spill, row_major=row_major)
     cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=2)
     params = init_params(jax.random.PRNGKey(0), cfg)
     prop = params["prop"]
     h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
-    a = aggregate_window(h, lay, prop["msg_w"], prop["msg_b"],
-                         interpret=True)
+    a = aggregate_window(h, lay, prop["msg_w"], prop["msg_b"])
     ref = gru_update(prop["gru"], h, a)
-    got = gru_window_step(h, lay, prop["msg_w"], prop["msg_b"], prop["gru"],
-                          interpret=True)
+    got = gru_window_step(h, lay, prop["msg_w"], prop["msg_b"], prop["gru"])
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
 
 def test_quantized_step_extra_init_no_spill(rng):
     """quantized + extra_init on a layout with NO spill population: the
-    init stream must come from extra_init alone (a round-6 review found
-    the branch keyed on has_init and reached for s_gather_idx that a
-    spill-free layout does not have)."""
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import gru_window_step
+    extra partial alone is added to the aggregation (no spill arrays
+    exist to gather from)."""
+    from ggnn.models.ggnn import gru_update
+    from ggnn.ops.window import gru_window_step
     N, E, T2, D, W = 256, 3000, 4, 128, 256
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=W,
@@ -157,11 +87,10 @@ def test_quantized_step_extra_init_no_spill(rng):
     prop = params["prop"]
     h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
     extra = jax.random.normal(jax.random.PRNGKey(2), (N, D)) * 0.1
-    a = aggregate_window(h, lay, prop["msg_w"], prop["msg_b"],
-                         interpret=True)
+    a = aggregate_window(h, lay, prop["msg_w"], prop["msg_b"])
     ref = gru_update(prop["gru"], h, a + extra)
     got = gru_window_step(h, lay, prop["msg_w"], prop["msg_b"],
-                          prop["gru"], interpret=True, quantized=True,
+                          prop["gru"], quantized=True,
                           extra_init=extra)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=0.1, atol=0.08)
@@ -171,13 +100,14 @@ def test_quantized_step_extra_init_no_spill(rng):
 @pytest.mark.parametrize("min_edges,typed_spill",
                          [(2, False), (120, False), (120, True)])
 def test_quantized_fused_step(rng, min_edges, typed_spill):
-    """int8-quantized serving step (power-of-2 per-window scales, int8 MXU
-    dots; values-only table + scales-vector spill dequant since round 6)
-    tracks the f32 step within quantization tolerance; with the XW typed
+    """int8-quantized serving step (power-of-2 per-window scales,
+    int8×int8→int32 products; the table spill dequantizes through the
+    scales vector) tracks the f32 step within quantization tolerance;
+    with the XW typed
     spill the spilled contribution is exact (gathers bf16 h, never the
     q8 table)."""
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import (gru_window_step,
+    from ggnn.models.ggnn import gru_update
+    from ggnn.ops.window import (gru_window_step,
                                             node_table_block_major_q8)
     N, E, T2, D, W = 256, 3000, 4, 128, 256
     src, dst, typ, mask = random_edges(rng, N, E, T2)
@@ -191,21 +121,20 @@ def test_quantized_fused_step(rng, min_edges, typed_spill):
     h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
     # table-level check: dequantized table tracks the f32 table
     tq, scales = node_table_block_major_q8(h, prop["msg_w"], prop["msg_b"],
-                                           window=W, interpret=True)
+                                           window=W)
     assert tq.shape == (N * T2, D) and scales.shape == (N * T2 // W, 1)
-    from ggnn_tpu.ops.window_pallas import _node_table
-    tf = _node_table(h, prop["msg_w"], prop["msg_b"], "block", True)
+    from ggnn.ops.onehot import node_table
+    tf = node_table(h, prop["msg_w"], prop["msg_b"], "block")
     deq = np.asarray(tq, np.float32) \
         * np.repeat(np.asarray(scales)[:, 0], W)[:, None]
     err = np.abs(deq - np.asarray(tf))
     lim = np.repeat(np.asarray(scales)[:, 0], W)[:, None]  # 1 LSB per window
     assert (err <= lim * 0.500001).all()
     # step-level parity within quantization noise
-    a = aggregate_window(h, lay, prop["msg_w"], prop["msg_b"],
-                         interpret=True)
+    a = aggregate_window(h, lay, prop["msg_w"], prop["msg_b"])
     ref = gru_update(prop["gru"], h, a)
     got = gru_window_step(h, lay, prop["msg_w"], prop["msg_b"], prop["gru"],
-                          interpret=True, quantized=True)
+                          quantized=True)
     # int8 window-scale noise propagated through the GRU gates: bounded
     # absolute deviation (relative blows up near zero crossings)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
@@ -216,7 +145,7 @@ def test_quantized_fused_step(rng, min_edges, typed_spill):
 def test_propagate_fused_backend(rng):
     """Full T-step propagation with backend='window', fuse_gru=True matches
     the XLA path (scan, layout through jit args)."""
-    from ggnn_tpu.models import propagate
+    from ggnn.models import propagate
     N, E, T2 = 512, 2500, 6
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=256,
@@ -243,9 +172,9 @@ def test_propagate_fused_backend(rng):
 
 @pytest.mark.parametrize("min_edges", [180, 10_000])
 def test_window_spill_edge_align(rng, min_edges):
-    """16-aligned spill packing (gather reads ~real rows; scatter tiles at
-    win_stride offsets, overlapping reads) matches the XLA path — partial
-    (180) and full (10000) spill."""
+    """16-aligned spill packing (each dst block's spilled edges padded to
+    16 rows, not to whole tiles) matches the XLA path — partial (180) and
+    full (10000) spill."""
     N, E, T2, D = 512, 3000, 4, 32
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=256,
@@ -253,7 +182,8 @@ def test_window_spill_edge_align(rng, min_edges):
                               n_message_types=T2, block_rows=256,
                               force_spill=True)
     assert 0 < lay.stats["spill_frac"] <= 1.0
-    assert "s_tile_msg_off" in lay.arrays
+    assert lay.stats["spill_tiles"] > 0
+    assert lay.stats["spill_pack"] % 16 == 0
     cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=2)
     params = init_params(jax.random.PRNGKey(0), cfg)
     h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
@@ -261,16 +191,15 @@ def test_window_spill_edge_align(rng, min_edges):
                           jnp.asarray(typ), jnp.asarray(mask),
                           params["prop"]["msg_w"], params["prop"]["msg_b"])
     got = aggregate_window(h, lay, params["prop"]["msg_w"],
-                           params["prop"]["msg_b"], interpret=True)
+                           params["prop"]["msg_b"])
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
     # fused step through the aligned spill init
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import gru_window_step
+    from ggnn.models.ggnn import gru_update
+    from ggnn.ops.window import gru_window_step
     ref_h = gru_update(params["prop"]["gru"], h, got)
     got_h = gru_window_step(h, lay, params["prop"]["msg_w"],
-                            params["prop"]["msg_b"], params["prop"]["gru"],
-                            interpret=True)
+                            params["prop"]["msg_b"], params["prop"]["gru"])
     np.testing.assert_allclose(np.asarray(got_h), np.asarray(ref_h),
                                rtol=2e-5, atol=2e-5)
 
@@ -278,7 +207,7 @@ def test_window_spill_edge_align(rng, min_edges):
 def test_window_layout_stats(rng):
     """Community graph: dense tiles capture the intra-community mass and
     the spill fraction tracks the cross-community rate."""
-    from ggnn_tpu.data.synthetic import synthetic_batch
+    from ggnn.data.synthetic import synthetic_batch
     b = synthetic_batch(4096, 40_000, 4, annotation_dim=2, seed=0,
                         node_mult=128, n_communities=16, p_intra=0.95)
     lay = build_window_layout(b.edge_src, b.edge_dst, b.edge_type,
@@ -295,36 +224,36 @@ def test_window_layout_stats(rng):
     assert lay_u.stats["spill_frac"] > 0.9
 
 
-def test_window_kernel_variants_agree(rng):
-    """Auto-pipelined and manual-DMA-ring kernels produce identical
-    results (incl. n_progs>1 and bpp=1 edge cases)."""
-    from ggnn_tpu.ops.window_pallas import (window_block_spmm,
-                                            window_block_spmm_mono)
-    N, E, T2, D, W = 512, 900, 4, 16, 64
+@pytest.mark.parametrize("window,out_rows", [(64, 128), (128, 256)])
+def test_window_kernel_variants_agree(rng, window, out_rows):
+    """window_block_spmm on a layout's compact count stream (dummy tiles,
+    c_off indirection) equals a per-tile NumPy loop over the same tiles."""
+    from ggnn.ops.window import window_block_spmm
+    N, E, T2, D = 512, 900, 4, 16
     src, dst, typ, mask = random_edges(rng, N, E, T2)
-    lay = build_window_layout(src, dst, typ, mask, N, window=W,
-                              min_edges_per_tile=1)
-    a = lay.arrays
+    lay = build_window_layout(src, dst, typ, mask, N, window=window,
+                              min_edges_per_tile=1, block_rows=out_rows)
+    a = {k: np.asarray(v) for k, v in lay.arrays.items()}
     R = T2 * N
-    table = jnp.asarray(rng.standard_normal(
-        (R + (-R) % W, D)).astype(np.float32))
-    ref = np.asarray(window_block_spmm(
-        table, a["c_stream"], a["tile_start"], a["block_of_tile"],
-        a["win_of_tile"], n_blocks=lay.n_blocks, window=W,
-        c_off=a["c_off"], interpret=True))
-    for n_progs, nbuf in ((1, 4), (2, 2), (lay.n_blocks, 3)):
-        got = window_block_spmm_mono(
-            table, a["c_stream"], a["tile_start"], a["block_of_tile"],
-            a["win_of_tile"], n_blocks=lay.n_blocks, window=W,
-            n_progs=n_progs, nbuf=nbuf, c_off=a["c_off"], interpret=True)
-        np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-6,
-                                   atol=1e-6, err_msg=f"{n_progs},{nbuf}")
+    table = rng.standard_normal((R + (-R) % window, D)).astype(np.float32)
+    got = window_block_spmm(
+        jnp.asarray(table), lay.arrays["c_stream"],
+        lay.arrays["block_of_tile"], lay.arrays["win_of_tile"],
+        lay.arrays["c_off"], n_blocks=lay.n_blocks, window=window,
+        out_rows=out_rows)
+    ref = np.zeros((lay.n_blocks * out_rows, D), np.float32)
+    c = a["c_stream"].reshape(-1, out_rows, window).astype(np.float32)
+    for t, (blk, w) in enumerate(zip(a["block_of_tile"], a["win_of_tile"])):
+        if w >= 0:
+            ref[blk * out_rows:(blk + 1) * out_rows] += (
+                c[a["c_off"][t]] @ table[w * window:(w + 1) * window])
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5, atol=1e-4)
 
 
 def test_propagate_window_backend(rng):
     """Full T-step propagation with backend='window' matches the XLA path
     (layout through jit args, mixed window+spill)."""
-    from ggnn_tpu.models import propagate
+    from ggnn.models import propagate
     N, E, T2 = 256, 500, 6
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=64,
@@ -361,8 +290,7 @@ def test_window_grad_parity(rng, row_major, window):
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=window,
                               min_edges_per_tile=4, spill_tile_e=8,
-                              n_message_types=T2, row_major=row_major,
-                              with_grad=True)
+                              n_message_types=T2, row_major=row_major)
     cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=3)
     params = init_params(jax.random.PRNGKey(0), cfg)
     h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
@@ -375,7 +303,7 @@ def test_window_grad_parity(rng, row_major, window):
         return jnp.sum((out - tgt) ** 2)
 
     def loss_win(h, w, b):
-        out = aggregate_window(h, lay, w, b, interpret=True)
+        out = aggregate_window(h, lay, w, b)
         return jnp.sum((out - tgt) ** 2)
 
     g_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(h, w, b)
@@ -395,7 +323,7 @@ def test_window_grad_parity_dummy_first_windows(rng):
     lay = build_window_layout(src, dst, typ, mask, N, window=128,
                               min_edges_per_tile=40, spill_tile_e=8,
                               n_message_types=T2, row_major="block",
-                              with_grad=True, force_spill=True)
+                              force_spill=True)
     assert 0 < lay.stats["spill_frac"] < 0.5
     w = jax.random.normal(jax.random.PRNGKey(0), (T2, D, D)) * 0.2
     b = jax.random.normal(jax.random.PRNGKey(1), (T2, D)) * 0.1
@@ -408,7 +336,7 @@ def test_window_grad_parity_dummy_first_windows(rng):
         return jnp.sum((out - tgt) ** 2)
 
     def loss_win(h, w, b):
-        out = aggregate_window(h, lay, w, b, interpret=True)
+        out = aggregate_window(h, lay, w, b)
         return jnp.sum((out - tgt) ** 2)
 
     g_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(h, w, b)
@@ -426,8 +354,7 @@ def test_window_grad_parity_straddle(rng):
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=256,
                               min_edges_per_tile=4, spill_tile_e=8,
-                              n_message_types=T2, row_major="block",
-                              with_grad=True)
+                              n_message_types=T2, row_major="block")
     w = jax.random.normal(jax.random.PRNGKey(0), (T2, D, D)) * 0.2
     b = jax.random.normal(jax.random.PRNGKey(1), (T2, D)) * 0.1
     h = jax.random.normal(jax.random.PRNGKey(2), (N, D))
@@ -439,7 +366,7 @@ def test_window_grad_parity_straddle(rng):
         return jnp.sum((out - tgt) ** 2)
 
     def loss_win(h, w, b):
-        out = aggregate_window(h, lay, w, b, interpret=True)
+        out = aggregate_window(h, lay, w, b)
         return jnp.sum((out - tgt) ** 2)
 
     g_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(h, w, b)
@@ -456,8 +383,8 @@ def test_window_backend_train_step(rng):
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=64,
                               min_edges_per_tile=4, spill_tile_e=8,
-                              n_message_types=T2, with_grad=True)
-    from ggnn_tpu.models import propagate
+                              n_message_types=T2)
+    from ggnn.models import propagate
     mk = dict(state_dim=8, annotation_dim=2, n_edge_types=3, n_steps=3)
     params = init_params(jax.random.PRNGKey(4), ModelConfig(**mk))
     ann = jnp.asarray((np.random.default_rng(1).random((N, 2)) < 0.5)
@@ -482,8 +409,8 @@ def test_window_backend_train_step(rng):
 
 
 def test_window_layout_jit_argument(rng):
-    """The layout passes through jit arguments as a pytree (remote-compile
-    payload rule: no big trace constants)."""
+    """The layout passes through jit arguments as a pytree (no big
+    constants baked into the compiled program)."""
     N, E, T2, D = 256, 400, 4, 16
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=64,
@@ -494,7 +421,7 @@ def test_window_layout_jit_argument(rng):
 
     @jax.jit
     def run(h, lay, w, b):
-        return aggregate_window(h, lay, w, b, interpret=True)
+        return aggregate_window(h, lay, w, b)
 
     got = run(h, lay, params["prop"]["msg_w"], params["prop"]["msg_b"])
     ref = typed_aggregate(h, jnp.asarray(src), jnp.asarray(dst),
@@ -517,7 +444,7 @@ def test_window_layout_degenerate(rng):
                               N, window=64, n_message_types=4,
                               force_spill=True)
     out = aggregate_window(h, lay, params["prop"]["msg_w"],
-                           params["prop"]["msg_b"], interpret=True)
+                           params["prop"]["msg_b"])
     np.testing.assert_allclose(np.asarray(out), 0.0, atol=1e-6)
     # one real edge, duplicated 200x (int8 saturation -> spill)
     src = np.full(200, 3, np.int32)
@@ -531,7 +458,7 @@ def test_window_layout_degenerate(rng):
                           jnp.asarray(typ), jnp.asarray(mask),
                           params["prop"]["msg_w"], params["prop"]["msg_b"])
     got = aggregate_window(h, lay2, params["prop"]["msg_w"],
-                           params["prop"]["msg_b"], interpret=True)
+                           params["prop"]["msg_b"])
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
@@ -540,18 +467,18 @@ def test_window_layout_degenerate(rng):
 @pytest.mark.parametrize("row_major", ["block", "src"])
 def test_window_typed_spill_parity(rng, min_edges, row_major):
     """typed_spill=True: the spill gathers h directly and applies W_t in
-    the scatter kernel (small-footprint gather, VERDICT r1 #4) — forward,
+    the scatter kernel (small-footprint gather) — forward,
     grads, and the fused-GRU serving step all match the XLA path across
     none/mixed/full spill regimes."""
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import gru_window_step
+    from ggnn.models.ggnn import gru_update
+    from ggnn.ops.window import gru_window_step
 
     N, E, T2, D = 256, 600, 6, 32
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=64,
                               min_edges_per_tile=min_edges, spill_tile_e=16,
                               n_message_types=T2, row_major=row_major,
-                              with_grad=True, force_spill=True,
+                              force_spill=True,
                               typed_spill=True)
     cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=3)
     params = init_params(jax.random.PRNGKey(0), cfg)
@@ -565,7 +492,7 @@ def test_window_typed_spill_parity(rng, min_edges, row_major):
         return jnp.sum((a - tgt) ** 2)
 
     def loss_win(h, W, b):
-        a = aggregate_window(h, lay, W, b, interpret=True)
+        a = aggregate_window(h, lay, W, b)
         return jnp.sum((a - tgt) ** 2)
 
     v_ref, g_ref = jax.value_and_grad(loss_ref, argnums=(0, 1, 2))(h, W, b)
@@ -580,104 +507,36 @@ def test_window_typed_spill_parity(rng, min_edges, row_major):
     a_ref = typed_aggregate(h, jnp.asarray(src), jnp.asarray(dst),
                             jnp.asarray(typ), jnp.asarray(mask), W, b)
     ref_h = gru_update(gru, h, a_ref)
-    got_h = gru_window_step(h, lay, W, b, gru, interpret=True)
+    got_h = gru_window_step(h, lay, W, b, gru)
     np.testing.assert_allclose(np.asarray(got_h), np.asarray(ref_h),
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("min_edges,window", [(1, 128), (4, 256),
-                                              (10_000, 128)])
-def test_window_on_demand_parity(rng, min_edges, window):
-    """on_demand=True: table windows built in VMEM from streamed h blocks
-    (no [T2·N, D] table in HBM — VERDICT r1 #3); forward + grads match the
-    XLA path across none/mixed/full spill regimes."""
-    N, E, T2, D = 256, 600, 6, 32
-    src, dst, typ, mask = random_edges(rng, N, E, T2)
-    lay = build_window_layout(src, dst, typ, mask, N, window=window,
-                              min_edges_per_tile=min_edges, spill_tile_e=16,
-                              n_message_types=T2, row_major="block",
-                              with_grad=True, force_spill=True,
-                              typed_spill=True, on_demand=True)
-    cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=3)
-    params = init_params(jax.random.PRNGKey(0), cfg)
-    W, b = params["prop"]["msg_w"], params["prop"]["msg_b"]
-    h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
-    tgt = jax.random.normal(jax.random.PRNGKey(2), (N, D))
-
-    def loss_ref(h, W, b):
-        a = typed_aggregate(h, jnp.asarray(src), jnp.asarray(dst),
-                            jnp.asarray(typ), jnp.asarray(mask), W, b)
-        return jnp.sum((a - tgt) ** 2)
-
-    def loss_win(h, W, b):
-        a = aggregate_window(h, lay, W, b, interpret=True)
-        return jnp.sum((a - tgt) ** 2)
-
-    v_ref, g_ref = jax.value_and_grad(loss_ref, argnums=(0, 1, 2))(h, W, b)
-    v_got, g_got = jax.value_and_grad(loss_win, argnums=(0, 1, 2))(h, W, b)
-    np.testing.assert_allclose(float(v_got), float(v_ref), rtol=1e-5)
-    for a, r, name in zip(g_got, g_ref, ("dh", "dW", "db")):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   rtol=3e-4, atol=3e-4, err_msg=name)
-
-
-@pytest.mark.parametrize("window,block_rows", [(128, 128), (512, 256)])
-def test_window_on_demand_fused_gru(rng, window, block_rows):
-    """gru_window_step on an on_demand layout: the fused kernel builds
-    table windows in VMEM AND runs the GRU epilogue — matches the
-    XLA aggregation + GRU cell."""
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import gru_window_step
-
-    N, E, T2, D = 256, 600, 8, 128
-    src, dst, typ, mask = random_edges(rng, N, E, T2)
-    lay = build_window_layout(src, dst, typ, mask, N, window=window,
-                              min_edges_per_tile=2, spill_tile_e=16,
-                              n_message_types=T2, row_major="block",
-                              force_spill=True, typed_spill=True,
-                              on_demand=True, block_rows=block_rows)
-    cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=4)
-    params = init_params(jax.random.PRNGKey(0), cfg)
-    W, b = params["prop"]["msg_w"], params["prop"]["msg_b"]
-    gru = params["prop"]["gru"]
-    h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
-    a_ref = typed_aggregate(h, jnp.asarray(src), jnp.asarray(dst),
-                            jnp.asarray(typ), jnp.asarray(mask), W, b)
-    ref_h = gru_update(gru, h, a_ref)
-    got = gru_window_step(h, lay, W, b, gru, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref_h),
-                               rtol=5e-4, atol=5e-4)
-
-
-@pytest.mark.parametrize("min_edges,on_demand",
+@pytest.mark.parametrize("min_edges,typed_spill",
                          [(3, False), (150, False), (3, True), (150, True)])
-def test_fused_gru_step_grads(rng, min_edges, on_demand):
-    """value_and_grad through the TRAINABLE fused step (the emit_res
-    custom VJP: the kernel also writes an (a|z|r|h̃) residual stream and
-    the backward reuses gru_cell_bwd + the fused window backward) matches
-    the unfused aggregate_window + gru_update step for every input —
-    h, msg_w, msg_b, and all GRU weights; dense and window+spill mixes,
-    with and without on-demand table windows."""
-    from ggnn_tpu.models.ggnn import gru_update
-    from ggnn_tpu.ops.window_pallas import gru_window_step
+def test_fused_gru_step_grads(rng, min_edges, typed_spill):
+    """value_and_grad through the fused window+GRU step matches the
+    unfused aggregate_window + gru_update step for every input — h,
+    msg_w, msg_b, and all GRU weights; dense and window+spill mixes,
+    table and XW spills."""
+    from ggnn.models.ggnn import gru_update
+    from ggnn.ops.window import gru_window_step
     N, E, T2, D = 512, 3000, 4, 128
     src, dst, typ, mask = random_edges(rng, N, E, T2)
     lay = build_window_layout(src, dst, typ, mask, N, window=256,
                               min_edges_per_tile=min_edges, spill_tile_e=8,
                               n_message_types=T2, block_rows=256,
-                              with_grad=True, row_major="block",
-                              typed_spill=on_demand, on_demand=on_demand)
+                              row_major="block", typed_spill=typed_spill)
     cfg = ModelConfig(state_dim=D, annotation_dim=2, n_edge_types=2)
     params = init_params(jax.random.PRNGKey(0), cfg)
     prop = params["prop"]
     h = jax.random.normal(jax.random.PRNGKey(1), (N, D))
 
     def loss_fused(h, msg_w, msg_b, gru):
-        return jnp.sum(gru_window_step(h, lay, msg_w, msg_b, gru,
-                                       interpret=True) ** 2)
+        return jnp.sum(gru_window_step(h, lay, msg_w, msg_b, gru) ** 2)
 
     def loss_ref(h, msg_w, msg_b, gru):
-        a = aggregate_window(h, lay, msg_w, msg_b, interpret=True)
+        a = aggregate_window(h, lay, msg_w, msg_b)
         return jnp.sum(gru_update(gru, h, a) ** 2)
 
     args = (h, prop["msg_w"], prop["msg_b"], prop["gru"])
@@ -689,16 +548,74 @@ def test_fused_gru_step_grads(rng, min_edges, on_demand):
                                    rtol=2e-4, atol=2e-4)
 
 
-def test_prefer_xw_spill_regimes():
-    """Auto spill heuristic (VERDICT r3 #2): XW only for on-demand
-    (required — no table) and for q8 under the measured ~100 MB gather
-    cliff; legacy table-gather everywhere else (round-6 matrix)."""
-    from ggnn_tpu.ops.window_pallas import prefer_xw_spill
-    # on_demand always XW
-    assert prefer_xw_spill(1_000_192, 128, on_demand=True)
-    # bf16 table mode: legacy at both scales
-    assert not prefer_xw_spill(262_144, 128)
-    assert not prefer_xw_spill(1_000_192, 128)
-    # q8: XW at 262K (h 67 MB, under the cliff), legacy at 1M (256 MB)
-    assert prefer_xw_spill(262_144, 128, quantized=True)
-    assert not prefer_xw_spill(1_000_192, 128, quantized=True)
+def _count_spmm_inputs(rng, dtype):
+    from ggnn.ops.window import _stream_tiles
+    N, E, T2, D, W = 512, 3000, 4, 16, 256
+    src, dst, typ, mask = random_edges(rng, N, E, T2)
+    lay = build_window_layout(src, dst, typ, mask, N, window=W,
+                              min_edges_per_tile=1, n_message_types=T2,
+                              block_rows=256, row_major="block")
+    a = lay.arrays
+    c = a["c_stream"].reshape(-1, 256, W)
+    st_win, st_blk = _stream_tiles(c.shape[0], a["block_of_tile"],
+                                   a["win_of_tile"], a["c_off"],
+                                   lay.n_blocks)
+    table = jnp.asarray(rng.standard_normal((T2 * N, D)), dtype)
+    return table, c, st_win, st_blk, lay.n_blocks
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_count_spmm_grad_matches_autodiff(rng, dtype):
+    """The count product's custom VJP (transposed product, nothing but
+    the layout kept) equals autodiff of the plain einsum formulation."""
+    from ggnn.ops.window import _count_spmm
+    table, c, st_win, st_blk, nb = _count_spmm_inputs(rng, dtype)
+    W = c.shape[-1]
+
+    def plain(t):
+        win = t.reshape(-1, W, t.shape[-1])[st_win]
+        prod = jnp.einsum("sow,swd->sod", c.astype(t.dtype), win,
+                          preferred_element_type=jnp.float32)
+        return jax.ops.segment_sum(prod, st_blk, num_segments=nb)
+
+    g = jax.random.normal(jax.random.PRNGKey(0), (nb, 256, table.shape[-1]))
+    got = jax.vjp(lambda t: _count_spmm(t, c, st_win, st_blk, nb, False),
+                  table)[1](g)[0]
+    want = jax.vjp(plain, table)[1](g)[0]
+    tol = 1e-5 if dtype == jnp.float32 else 2e-2
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol * 10)
+    np.testing.assert_allclose(
+        np.asarray(_count_spmm(table, c, st_win, st_blk, nb, False)),
+        np.asarray(plain(table)), rtol=1e-5, atol=1e-4)
+
+
+def test_count_spmm_int8_backward_tracks_exact(rng):
+    """grad_quant: the int8 transposed product tracks the exact backward
+    within the per-block int8 rounding (rel-L2 < 2 %)."""
+    from ggnn.ops.window import _count_spmm
+    table, c, st_win, st_blk, nb = _count_spmm_inputs(rng, jnp.float32)
+    g = jax.random.normal(jax.random.PRNGKey(1), (nb, 256, table.shape[-1]))
+    exact = jax.vjp(lambda t: _count_spmm(t, c, st_win, st_blk, nb, False),
+                    table)[1](g)[0]
+    quant = jax.vjp(lambda t: _count_spmm(t, c, st_win, st_blk, nb, True),
+                    table)[1](g)[0]
+    exact, quant = np.asarray(exact), np.asarray(quant)
+    assert not np.array_equal(exact, quant)
+    assert np.linalg.norm(quant - exact) < 0.02 * np.linalg.norm(exact)
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
+def test_quantize_pow2(rng, scale):
+    """int8 values in [-127, 127], power-of-2 scales, and a dequantization
+    error of at most half a step per slice."""
+    from ggnn.ops.window import _quantize_pow2
+    x = jnp.asarray(rng.standard_normal((6, 32, 16)) * scale, jnp.float32)
+    q, s = _quantize_pow2(x, axes=(1, 2))
+    q, s = np.asarray(q), np.asarray(s)
+    assert q.dtype == np.int8 and np.abs(q.astype(np.int32)).max() <= 127
+    assert s.shape == (6, 1, 1)
+    np.testing.assert_array_equal(np.exp2(np.round(np.log2(s))), s)
+    err = np.abs(q * s - np.asarray(x))
+    assert (err <= 0.5 * s + 1e-12).all()
